@@ -2,9 +2,9 @@
 //
 // Solves  min c'x  s.t.  A x = b,  l <= x <= u  with a Mehrotra
 // predictor-corrector primal-dual interior-point method — the same
-// algorithm as the TPU engine (engines/lp_ipm.py) but in double precision
-// with convergence-based termination. It is the trusted native oracle the
-// batched f32 TPU solver is diffed against in tests (SURVEY.md §2.4: the
+// algorithm as the device engine (engines/lp_ipm.py) but in double
+// precision with convergence-based termination. It is the trusted native
+// oracle the batched f32 device solver is diffed against in tests (SURVEY.md §2.4: the
 // reference suite leaned on MATPOWER's MIPS interior-point solver;
 // this plays MIPS's role for verification).
 //

@@ -1,28 +1,24 @@
 """case300-scale parity probe: the m=792 LP path vs the float64 oracle.
 
 Generates a stress mix of contingencies on the synthetic 300-bus system
-(``cases.case300s``; m = nb + nl = 792, past every Pallas crossover — the
-XLA batched-Cholesky fallback path):
+(``cases.case300s``; m = nb + nl = 792 — the large-m block-Schur LP
+path):
 
-  * 64 "spread" states: 2-4 line + 3-8 gen outages anywhere (the
-    probe_blocked_quality recipe — mostly zero-shed at this scale);
+  * 64 "spread" states: 2-4 line + 3-8 gen outages anywhere (mostly
+    zero-shed at this scale);
   * 64 "concentrated" states: 6-14 generator + 0-3 line outages inside
     ONE area (area deficit exceeds the 1000 MW ring import -> real shed).
 
 Evaluates them through the public ``dcopf.evaluate_states`` on the
-current backend (TPU when available; ``--cpu`` forces the local CPU
-backend — both take the same generic-XLA solver path at this size),
-saves the per-lane results to an npz, and (unless ``--skip-oracle``)
-spawns the CPU-forced ``probe_oracle_diff.py`` to diff every shed lane
-plus 64 zero-shed lanes against float64 ``scipy.linprog(method="highs")``
-(f64 must run in a separate process: the TPU backend has no float64).
+default device (``--cpu`` forces the CPU), and (unless
+``--skip-oracle``) diffs every shed lane plus 64 zero-shed lanes against
+float64 ``scipy.linprog(method="highs")`` (utils/oracle.py).
 
 Usage: python scripts/parity_case300.py [--cpu] [--out results/case300_parity.json]
 """
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -34,14 +30,14 @@ if "--cpu" in sys.argv:
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-import powersystemsreliabilityassessment_tpu as psra  # noqa: F401  (matmul precision)
+import powersystemsreliabilityassessment as psra  # noqa: F401  (matmul precision)
 import jax
 import jax.numpy as jnp
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.core.system import build_system
-from powersystemsreliabilityassessment_tpu.engines import dcopf
-from powersystemsreliabilityassessment_tpu.utils.config import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.core.system import build_system
+from powersystemsreliabilityassessment.engines import dcopf
+from powersystemsreliabilityassessment.utils.config import (
     CompatFlags, IPMConfig)
 
 
@@ -93,7 +89,8 @@ def main():
     q = np.asarray(res.primal_residual, np.float64)
     cert = np.asarray(dcopf.certify_states(
         sys_, jnp.asarray(states), load).certified)
-    backend = jax.default_backend()
+    from powersystemsreliabilityassessment.runtime import device
+    backend = device.jax_device()["kind"]
     print(f"[{backend}] m=792 eval of {B} lanes in {t_compile_and_run:.1f}s "
           f"(incl. compile): certified {cert.sum()}, shed lanes "
           f"{(dns > 0).sum()}, total {dns.sum():.1f} MW, quality med "
@@ -108,27 +105,19 @@ def main():
            "guard_tripped": int(((q > 5e-3) & ~cert).sum()),
            "eval_secs_incl_compile": t_compile_and_run}
 
-    npz = f"/tmp/probe_quality_case300s_{backend}.npz"
-    np.savez(npz, states=states, dns=dns, q=q, certified=cert)
-
     if not args.skip_oracle:
-        # float64 oracle in a separate CPU-forced process (no f64 on TPU).
+        from powersystemsreliabilityassessment.utils import oracle
         t0 = time.time()
-        proc = subprocess.run(
-            [sys.executable,
-             os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "probe_oracle_diff.py"),
-             "case300s", npz, "64"],
-            capture_output=True, text=True, cwd=os.path.dirname(
-                os.path.dirname(os.path.abspath(__file__))))
-        print(proc.stdout.strip())
-        if proc.returncode != 0:
-            print(proc.stderr[-2000:])
-            raise SystemExit("oracle diff failed")
-        last = proc.stdout.strip().splitlines()[-1]
-        # "N lanes diffed vs HiGHS f64: max |err| = X MW"
-        out["oracle_lanes"] = int(last.split()[0])
-        out["oracle_max_err_mw"] = float(last.split("= ")[1].split(" MW")[0])
+        shed = np.flatnonzero(dns > 0)
+        lanes = np.concatenate([shed, np.flatnonzero(dns <= 0)[:64]])
+        load_h = np.asarray(sys_.load_pd)
+        err = [abs(dns[i] - oracle.highs_dns(sys_, states[i] > 0, load_h,
+                                             compat, ipm.theta_max))
+               for i in lanes]
+        print(f"{len(lanes)} lanes diffed vs HiGHS f64: max |err| = "
+              f"{max(err):.4f} MW")
+        out["oracle_lanes"] = int(len(lanes))
+        out["oracle_max_err_mw"] = float(max(err))
         out["oracle_secs"] = time.time() - t0
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -2,7 +2,7 @@
 
 Evaluates ALL 2,557 states with <= 2 component outages (every single and
 double contingency of RTS-24, enumerated — not sampled) through the
-production two-tier evaluator on the current backend, then diffs every
+production two-tier evaluator on the default device, then diffs every
 state against float64 scipy HiGHS in a CPU-forced subprocess.
 
 Reports per-state max/mean |DNS error| and the PROBABILITY-WEIGHTED
@@ -21,9 +21,10 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-NPZ = "/tmp/n2_exhaustive.npz"
+NPZ = os.path.join(REPO, "results", "n2_exhaustive_states.npz")
 
 
 def evaluate(order: int) -> None:
@@ -31,12 +32,12 @@ def evaluate(order: int) -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    import powersystemsreliabilityassessment_tpu  # noqa: F401
-    from powersystemsreliabilityassessment_tpu.core import cases
-    from powersystemsreliabilityassessment_tpu.core.system import build_system
-    from powersystemsreliabilityassessment_tpu.engines import dcopf
-    from powersystemsreliabilityassessment_tpu.sampling import enumeration
-    from powersystemsreliabilityassessment_tpu.utils.config import (
+    import powersystemsreliabilityassessment  # noqa: F401
+    from powersystemsreliabilityassessment.core import cases
+    from powersystemsreliabilityassessment.core.system import build_system
+    from powersystemsreliabilityassessment.engines import dcopf
+    from powersystemsreliabilityassessment.sampling import enumeration
+    from powersystemsreliabilityassessment.utils.config import (
         CompatFlags, IPMConfig)
 
     compat, ipm = CompatFlags(), IPMConfig()
@@ -72,7 +73,8 @@ def evaluate(order: int) -> None:
     dns = np.asarray(res.dns_mw, np.float64)[:n]
     quality = np.asarray(res.primal_residual, np.float64)[:n]
     assert int(n_over) == 0
-    print(f"[{jax.default_backend()}] {n} states evaluated in "
+    from powersystemsreliabilityassessment.runtime import device
+    print(f"[{device.jax_device()['kind']}] {n} states evaluated in "
           f"{time.perf_counter() - t0:.1f}s; shed states "
           f"{int(np.sum(dns > 1e-4))}")
     np.savez(NPZ, states=states, dns=dns, w=w, quality=quality)
@@ -87,12 +89,12 @@ def oracle(order: int) -> None:
     import numpy as np
     from scipy.optimize import linprog
 
-    import powersystemsreliabilityassessment_tpu  # noqa: F401
-    from powersystemsreliabilityassessment_tpu.core import cases
-    from powersystemsreliabilityassessment_tpu.core.system import build_system
-    from powersystemsreliabilityassessment_tpu.engines.dcopf import (
+    import powersystemsreliabilityassessment  # noqa: F401
+    from powersystemsreliabilityassessment.core import cases
+    from powersystemsreliabilityassessment.core.system import build_system
+    from powersystemsreliabilityassessment.engines.dcopf import (
         build_state_lp)
-    from powersystemsreliabilityassessment_tpu.utils.config import (
+    from powersystemsreliabilityassessment.utils.config import (
         CompatFlags, IPMConfig)
 
     compat = CompatFlags()

@@ -1,4 +1,4 @@
-"""Full parity run against the reference baselines (BASELINE.md).
+"""Full parity run against the reference baselines (PARITY.md).
 
 NSQ: 100k samples at fixed peak load (nsqMain.m config: beta target 0.0017,
 max 100,000 samples — the reference hit the cap at beta 0.0145).
@@ -19,11 +19,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import run_nsq_study
-from powersystemsreliabilityassessment_tpu.studies.hl2_seq import run_seq_study
-from powersystemsreliabilityassessment_tpu.utils import report
-from powersystemsreliabilityassessment_tpu.utils.config import MCSConfig
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.studies.hl2_nsq import run_nsq_study
+from powersystemsreliabilityassessment.studies.hl2_seq import run_seq_study
+from powersystemsreliabilityassessment.utils import report
+from powersystemsreliabilityassessment.utils.config import MCSConfig
 
 REF = {
     "nsq": {"edns": 14.8894, "lole": 735.93, "beta": 0.01451,
@@ -39,9 +39,10 @@ REF = {
 def main():
     case = cases.rts24()
     os.makedirs("results", exist_ok=True)
-    lines = ["# PARITY — TPU framework vs reference baselines",
-             "", "Produced by `scripts/parity_run.py` on real TPU hardware.",
-             ""]
+    from powersystemsreliabilityassessment.runtime import device
+    dev_kind = device.jax_device()["kind"]
+    lines = ["# PARITY — framework vs reference baselines", "",
+             f"Produced by `scripts/parity_run.py` on {dev_kind}.", ""]
 
     t0 = time.time()
     nsq = run_nsq_study(case, MCSConfig(batch_size=8192, max_samples=100_000,
@@ -62,7 +63,7 @@ def main():
         f"{(nsq.lole_hr_yr - r['lole']) / r['lole'] * 100:+.2f}% |",
         f"| final beta | {r['beta']} | {nsq.beta:.5f} | — |",
         f"| samples | 100000 | {nsq.samples} | — |",
-        f"| wall clock | n/a | {t_nsq:.1f} s (single chip) | — |",
+        f"| wall clock | n/a | {t_nsq:.1f} s ({dev_kind}) | — |",
         "",
         "Top nodal EENS (MWh/yr):",
         "",
@@ -105,7 +106,7 @@ def main():
         f"| PLC | {r['plc']:.4e} | {seq.plc:.4e} | — |",
         f"| EDNS (MW) | {r['edns']} | {seq.edns_mw:.4f} | — |",
         f"| years to converge | {r['years']} | {seq.years} | — |",
-        f"| wall clock | n/a | {t_seq:.1f} s (single chip) | — |",
+        f"| wall clock | n/a | {t_seq:.1f} s ({dev_kind}) | — |",
         "", "Top nodal EENS (MWh/yr):", "",
         "| Bus | Reference | Ours |", "|---|---|---|",
     ]

@@ -19,15 +19,15 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import powersystemsreliabilityassessment_tpu as psra  # noqa: F401
+import powersystemsreliabilityassessment as psra  # noqa: F401
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.studies.hl2_seq import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.studies.hl2_seq import (
     run_seq_study)
-from powersystemsreliabilityassessment_tpu.utils.config import (
+from powersystemsreliabilityassessment.utils.config import (
     CompatFlags, MCSConfig)
 
-# Reference artifact values (BASELINE.md; Montecarlo_seq/
+# Reference artifact values (PARITY.md; Montecarlo_seq/
 # seq_reliability_results.mat via seqMain.m:160-213).
 ARTIFACT = {"eens_mwh_yr": 4266.87, "lole_hr_yr": 14.331,
             "lolf_occ_yr": 2.465, "plc": 1.640e-3, "edns_mw": 0.4884}

@@ -1,4 +1,5 @@
-"""Run the remaining study configurations on TPU; save results JSON."""
+"""Run the remaining study configurations on the default device; save
+results JSON."""
 import json
 import os
 import sys
@@ -8,12 +9,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 out = {}
 
-from powersystemsreliabilityassessment_tpu.studies import hl1_rts24
+from powersystemsreliabilityassessment.studies import hl1_rts24
 t0 = time.time()
 out["hl1_rts24"] = hl1_rts24.run(iterations=20000, years=2000)
 out["hl1_rts24"]["wall_s"] = time.time() - t0
 
-from powersystemsreliabilityassessment_tpu.studies import scaleup
+from powersystemsreliabilityassessment.studies import scaleup
 t0 = time.time()
 out["antithetic"] = scaleup.antithetic_variance_comparison(samples=40960)
 out["antithetic"]["wall_s"] = time.time() - t0
@@ -21,9 +22,9 @@ t0 = time.time()
 out["rts96"] = scaleup.run(samples=40960, batch_size=4096)
 out["rts96"]["wall_s"] = time.time() - t0
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.studies.hl2_seq import run_seq_study
-from powersystemsreliabilityassessment_tpu.utils.config import MCSConfig
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.studies.hl2_seq import run_seq_study
+from powersystemsreliabilityassessment.utils.config import MCSConfig
 t0 = time.time()
 seqm = run_seq_study(cases.rts24(), MCSConfig(max_years=512, cov_threshold=0.0, seed=11),
                      years_per_device=8, max_lp=1024, scheduled_maintenance=True, log_every=10)
@@ -31,8 +32,8 @@ out["seq_with_maintenance"] = {"eens": seqm.eens_mwh_yr, "lole": seqm.lole_hr_yr
                                "lolf": seqm.lolf_occ_yr, "years": seqm.years,
                                "wall_s": time.time() - t0}
 
-from powersystemsreliabilityassessment_tpu.studies import planning_elu
-from powersystemsreliabilityassessment_tpu.utils import report
+from powersystemsreliabilityassessment.studies import planning_elu
+from powersystemsreliabilityassessment.utils import report
 t0 = time.time()
 cmp600 = planning_elu.run_elu_comparison(mc_years=1000, seed=3)
 out["elu_600h"] = cmp600.to_dict(); out["elu_600h"]["wall_s"] = time.time() - t0
@@ -42,7 +43,7 @@ out["tail_risk_50h"] = tail.to_dict(); out["tail_risk_50h"]["wall_s"] = time.tim
 os.makedirs("results", exist_ok=True)
 report.plot_tail_risk(tail, "results/tail_risk.png")
 
-from powersystemsreliabilityassessment_tpu.studies import multiarea_demo
+from powersystemsreliabilityassessment.studies import multiarea_demo
 t0 = time.time()
 out["multiarea"] = multiarea_demo.run_demo(n_years=200, seed=5)
 out["multiarea"]["wall_s"] = time.time() - t0

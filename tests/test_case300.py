@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import pytest
 from scipy.optimize import linprog
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.core.system import build_system
-from powersystemsreliabilityassessment_tpu.engines import lp_ipm_batched
-from powersystemsreliabilityassessment_tpu.engines.dcopf import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.core.system import build_system
+from powersystemsreliabilityassessment.engines import lp_ipm_batched
+from powersystemsreliabilityassessment.engines.dcopf import (
     build_state_lp, make_dc_linops)
-from powersystemsreliabilityassessment_tpu.utils.config import (
+from powersystemsreliabilityassessment.utils.config import (
     CompatFlags, IPMConfig)
 
 
@@ -165,17 +165,16 @@ def test_sharded_step_m792_8device_mesh():
     """The TRUE case300s shape (m=792) under a multi-device mesh: the
     full screened NSQ batch step — tier-1 certificates, island-PF tier,
     block-Schur XLA IPM with the rescue ladder, psum moment reduction —
-    jitted over the 8-device scenario mesh and EXECUTED (VERDICT r4
-    weak #6: the dryrun covers m=384 and the unsharded suite covers
-    m=792, but no sharded m=792 execution existed anywhere). ~2 min
-    CPU compile at batch 1024; moments must be finite, non-negative and
+    jitted over the 8-device scenario mesh and EXECUTED (the dryrun
+    covers m=384 and the unsharded suite covers m=792, but no sharded
+    m=792 execution existed anywhere). Moments must be finite, non-negative and
     carry the full sample count.
 
     Reference analog: the parfor scenario loop at nsqMain.m:257-263 run
     on the largest case class (README.md:47-49)."""
     import jax
-    from powersystemsreliabilityassessment_tpu.parallel import mesh as meshlib
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.parallel import mesh as meshlib
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         make_nsq_batch_step)
 
     case = cases.case300s()

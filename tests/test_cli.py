@@ -1,4 +1,4 @@
-"""CLI surface (powersystemsreliabilityassessment_tpu/__main__.py).
+"""CLI surface (powersystemsreliabilityassessment/__main__.py).
 
 Parse-only: build_parser is separated from dispatch precisely so these
 tests can pin every documented flag combination without running a study
@@ -11,7 +11,7 @@ import sys
 
 import pytest
 
-from powersystemsreliabilityassessment_tpu.__main__ import build_parser
+from powersystemsreliabilityassessment.__main__ import build_parser
 
 
 @pytest.mark.parametrize("argv", [
@@ -20,10 +20,8 @@ from powersystemsreliabilityassessment_tpu.__main__ import build_parser
      "--seed", "3", "--is-boost", "2.5", "--control-variate",
      "--checkpoint", "/tmp/x.json", "--checkpoint-backend", "orbax"],
     ["nsq", "--case", "path/to/case.m"],
-    ["nsq", "--early-exit"],
     ["nsq", "--is-boost", "8", "--is-boost-scope", "gens"],
     ["nsq", "--is-boost", "8", "--is-boost-scope", "branches"],
-    ["seq", "--early-exit", "--control-variate"],
     ["seq"],
     ["seq", "--years", "100", "--cov", "0.1", "--years-per-device", "8",
      "--sampling", "stationary", "--control-variate"],
@@ -50,6 +48,10 @@ def test_documented_combinations_parse(argv):
     ["nsq", "--checkpoint-backend", "bogus"],
     ["nsq", "--is-boost-scope", "bogus"],
     [],
+    # Removed with the kernels they selected.
+    ["nsq", "--early-exit"],
+    ["seq", "--early-exit", "--control-variate"],
+    ["nsq", "--fused-tier1"],
 ])
 def test_invalid_flags_rejected(argv):
     with pytest.raises(SystemExit):
@@ -65,7 +67,7 @@ def test_invalid_flags_rejected(argv):
 ])
 def test_conflicting_combinations_error(argv, needle):
     r = subprocess.run(
-        [sys.executable, "-m", "powersystemsreliabilityassessment_tpu",
+        [sys.executable, "-m", "powersystemsreliabilityassessment",
          *argv], capture_output=True, text=True)
     assert r.returncode == 2
     assert needle in r.stderr

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from powersystemsreliabilityassessment_tpu.core import cases, load_profile
-from powersystemsreliabilityassessment_tpu.models import twostate
+from powersystemsreliabilityassessment.core import cases, load_profile
+from powersystemsreliabilityassessment.models import twostate
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +122,7 @@ class TestLoadProfile:
 def test_package_lazy_top_level_api():
     # PEP 562 lazy exports: the main entry points resolve without eager
     # heavy imports at package-import time.
-    import powersystemsreliabilityassessment_tpu as psra
+    import powersystemsreliabilityassessment as psra
     assert callable(psra.build_system)
     assert callable(psra.run_nsq_study)
     assert callable(psra.run_seq_study)

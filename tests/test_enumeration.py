@@ -11,16 +11,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.core.system import build_system
-from powersystemsreliabilityassessment_tpu.engines import dcopf
-from powersystemsreliabilityassessment_tpu.sampling import enumeration
-from powersystemsreliabilityassessment_tpu.sampling.state import sample_states
-from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.core.system import build_system
+from powersystemsreliabilityassessment.engines import dcopf
+from powersystemsreliabilityassessment.sampling import enumeration
+from powersystemsreliabilityassessment.sampling.state import sample_states
+from powersystemsreliabilityassessment.studies.hl2_nsq import (
     make_nsq_batch_step, run_nsq_study)
-from powersystemsreliabilityassessment_tpu.parallel import (
+from powersystemsreliabilityassessment.parallel import (
     accumulators, mesh as meshlib)
-from powersystemsreliabilityassessment_tpu.utils.config import (
+from powersystemsreliabilityassessment.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
 
 
@@ -121,7 +121,7 @@ def test_step_tail_mask_complementary():
     dns_lo = flag_lo = 0.0
     dns_sq_delta = 0.0
     for dev in range(n_dev):
-        # device_step folds axis_index; replicate via fold_in(key, dev)
+        # device d draws from fold_in(key, d) (mesh.device_keys)
         down = sample_states(jax.random.fold_in(key, dev), sys_.unavail,
                              sys_.always_up_nsq, bpd)
         load = jnp.broadcast_to(sys_.load_pd[None, :], (bpd, sys_.n_load))
@@ -152,8 +152,7 @@ def test_enum_study_end_to_end():
     assert res.enum_states == 1 + 70 + 70 * 69 // 2
     assert 0.82 < res.enum_mass < 0.84          # P(#down<=2) = 0.8276
     # The exact k=2 part is deterministic: full EDNS ~14.7 minus the
-    # measured tail term E[DNS*1(#down>2)] ~12.2 (scripts/probe_enum.py)
-    # puts it at ~2.45 MW.
+    # measured tail term E[DNS*1(#down>2)] ~12.2 puts it at ~2.45 MW.
     assert res.enum_edns_exact_mw == pytest.approx(2.45, abs=0.35)
     assert res.edns_mw >= res.enum_edns_exact_mw
     assert np.isfinite(res.beta)
@@ -163,7 +162,7 @@ def test_enum_study_end_to_end():
 
 
 def test_enum_study_checkpoint_resume(tmp_path):
-    from powersystemsreliabilityassessment_tpu.runtime.checkpoint import (
+    from powersystemsreliabilityassessment.runtime.checkpoint import (
         Checkpointer)
     cfg = MCSConfig(batch_size=128, max_samples=768, beta_limit=0.0,
                     seed=13)

@@ -5,21 +5,21 @@ Two layers:
    outputs (catches any behavioral drift in sampling/evaluation/reduction);
 2. statistical-consistency gates against the reference baselines scaled to
    the small sample's Monte-Carlo tolerance (the full-scale comparison
-   lives in PARITY.md, run on TPU).
+   lives in PARITY.md).
 """
 import pytest
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import run_nsq_study
-from powersystemsreliabilityassessment_tpu.studies.hl2_seq import run_seq_study
-from powersystemsreliabilityassessment_tpu.utils.config import MCSConfig
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.studies.hl2_nsq import run_nsq_study
+from powersystemsreliabilityassessment.studies.hl2_seq import run_seq_study
+from powersystemsreliabilityassessment.utils.config import MCSConfig
 
 # Recorded from the virtual 8-device CPU mesh (conftest forces it).
 GOLDEN_EDNS = 13.746116638183594
 GOLDEN_LOLE = 787.03125
 GOLDEN_PLC = 0.08984375
 
-REF_EDNS = 14.8894    # reliability_results.mat (BASELINE.md)
+REF_EDNS = 14.8894    # reliability_results.mat (PARITY.md)
 REF_LOLE = 735.93
 
 

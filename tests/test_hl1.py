@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from powersystemsreliabilityassessment_tpu.engines import copper_sheet, copt
-from powersystemsreliabilityassessment_tpu.sampling import chronological
+from powersystemsreliabilityassessment.engines import copper_sheet, copt
+from powersystemsreliabilityassessment.sampling import chronological
 
 
 # Demo fleet in the spirit of run_full_comparison.jl:6-16

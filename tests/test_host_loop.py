@@ -6,7 +6,7 @@ pinned separately in test_parallel.py; these pin the loop contract
 itself: every batch consumed exactly once, redo semantics, in-flight
 drain, and the checkpoint resume index.
 """
-from powersystemsreliabilityassessment_tpu.runtime.host_loop import (
+from powersystemsreliabilityassessment.runtime.host_loop import (
     double_buffered_loop)
 
 

@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.core.system import build_system
-from powersystemsreliabilityassessment_tpu.engines import dcopf
-from powersystemsreliabilityassessment_tpu.utils.config import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.core.system import build_system
+from powersystemsreliabilityassessment.engines import dcopf
+from powersystemsreliabilityassessment.utils.config import (
     CompatFlags, IPMConfig)
 
 from test_lp_dcopf import scipy_dns

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.core.system import build_system
-from powersystemsreliabilityassessment_tpu.engines import dcopf, lp_ipm
-from powersystemsreliabilityassessment_tpu.models import twostate
-from powersystemsreliabilityassessment_tpu.utils.config import CompatFlags, IPMConfig
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.core.system import build_system
+from powersystemsreliabilityassessment.engines import dcopf, lp_ipm
+from powersystemsreliabilityassessment.models import twostate
+from powersystemsreliabilityassessment.utils.config import CompatFlags, IPMConfig
 
 COMPAT = CompatFlags()
 IPM = IPMConfig()
@@ -162,31 +162,6 @@ class TestDCOPF:
         np.testing.assert_allclose(np.asarray(scr.dns_mw),
                                    np.asarray(full.dns_mw), atol=0.5)
         assert (np.asarray(scr.failure) == np.asarray(full.failure)).all()
-
-    def test_screened_order_invariance(self, sys24):
-        # early_exit also switches the LP-lane compaction to
-        # difficulty-descending order (dcopf.evaluate_states_screened);
-        # the scatter-back must make the ordering invisible: identical
-        # results lane-for-lane vs the default lane-index order.
-        import dataclasses as dc
-        rng = np.random.default_rng(9)
-        u = twostate.unavailability(cases.rts24())
-        B = 64
-        down = rng.uniform(size=(B, 71)) < 2 * u[None, :]
-        down[:, 14] = False
-        loads = _peak_loads(sys24, B)
-        base, _ = dcopf.evaluate_states_screened(
-            sys24, jnp.asarray(down), jnp.asarray(loads), B, COMPAT, IPM)
-        ordered, n_over = dcopf.evaluate_states_screened(
-            sys24, jnp.asarray(down), jnp.asarray(loads), B, COMPAT,
-            dc.replace(IPM, early_exit=True))
-        assert int(n_over) == 0
-        np.testing.assert_allclose(np.asarray(ordered.dns_mw),
-                                   np.asarray(base.dns_mw), atol=1e-4)
-        np.testing.assert_allclose(np.asarray(ordered.nodal_mw),
-                                   np.asarray(base.nodal_mw), atol=1e-4)
-        assert (np.asarray(ordered.failure)
-                == np.asarray(base.failure)).all()
 
     def test_scaled_load_seq_style(self, sys24):
         # Half load, one U400 out: plenty of margin -> no shed.
@@ -377,7 +352,7 @@ def test_multi_outage_certified_lanes_match_oracle(sys24):
 
 
 def test_baseline_report_intact_system():
-    from powersystemsreliabilityassessment_tpu.engines import dcopf as d
+    from powersystemsreliabilityassessment.engines import dcopf as d
     sys_ = build_system(cases.rts24())
     r = d.baseline_report(sys_)
     assert r["capacity_feasible"]
@@ -413,7 +388,7 @@ def test_post_outage_repair_certifies_n1_lanes(sys24):
     Every lane it newly certifies must carry a provably optimal value:
     deficit == f64 LP optimum, and the certificate's shed/dispatch pattern
     must be feasible on the reduced network (balanced + within rates)."""
-    from powersystemsreliabilityassessment_tpu.sampling.state import (
+    from powersystemsreliabilityassessment.sampling.state import (
         sample_states)
     ng = sys24.n_gen
     # Production state distribution at peak load (pure N-1 on an
@@ -460,7 +435,7 @@ def test_certify_repair_buffer_exact(sys24):
     full-batch repair when the buffer covers the needy lanes, and
     degrades safely (certified set only shrinks; totals untouched) when
     it cannot."""
-    from powersystemsreliabilityassessment_tpu.sampling.state import (
+    from powersystemsreliabilityassessment.sampling.state import (
         sample_states)
     down = sample_states(jax.random.key(43), sys24.unavail,
                          sys24.always_up_nsq, 16384)
@@ -488,7 +463,7 @@ def test_screened_repair_buffer_invariant(sys24):
     """The screened evaluator returns identical results with and without
     compacted repair (the un-repaired -> LP route resolves the same
     states the certificate would have)."""
-    from powersystemsreliabilityassessment_tpu.sampling.state import (
+    from powersystemsreliabilityassessment.sampling.state import (
         sample_states)
     compat, ipm = CompatFlags(), IPMConfig()
     down = sample_states(jax.random.key(44), sys24.unavail,
@@ -511,8 +486,8 @@ def test_screened_repair_buffer_invariant(sys24):
 
 def test_default_repair_buffer_policy():
     # batch // 8 covers the measured ~7.0% first-check-needy fraction
-    # at RTS-24 peak with headroom (scripts/probe_firstpass_rate.py:
-    # 18,446 needy of 262144; an earlier batch // 64 policy overflowed).
+    # at RTS-24 peak with headroom (18,446 needy of 262144 counted; an
+    # earlier batch // 64 policy overflowed).
     assert dcopf.default_repair_buffer(262144) == 32768
     assert dcopf.default_repair_buffer(262144) > 18446
     assert dcopf.default_repair_buffer(1024) == 1024
@@ -559,3 +534,116 @@ def test_shed_hint_calibration_and_equivalence(sys24):
     np.testing.assert_allclose(np.asarray(res_h.dns_mw),
                                np.asarray(res_p.dns_mw), atol=5e-3)
     assert (np.asarray(res_h.failure) == np.asarray(res_p.failure)).all()
+
+
+@pytest.fixture(scope="module")
+def lane_states(sys24):
+    """128 RTS-24 lanes: stressed random states plus single-line
+    outages, so the flow rows vary across lanes."""
+    case = cases.rts24()
+    B = 128
+    rng = np.random.default_rng(11)
+    u = twostate.unavailability(case)
+    down = rng.uniform(size=(B, case.n_comp)) < 3 * u[None, :]
+    down[:, 14] = False
+    down[np.arange(0, B, 3),
+         case.n_gen + rng.integers(0, case.n_branch, len(range(0, B, 3)))
+         ] = True
+    gu = jnp.asarray(1.0 - down[:, :case.n_gen].astype(np.float32))
+    bu = jnp.asarray(1.0 - down[:, case.n_gen:].astype(np.float32))
+    load = jnp.asarray(np.tile(np.asarray(sys24.load_pd)[None, :], (B, 1)))
+    return gu, bu, load
+
+
+def test_vectors_match_materialized_builder(sys24, lane_states):
+    gu, bu, load = lane_states
+    c, A, b, l, u = jax.vmap(
+        lambda g, br, ld: dcopf.build_state_lp(sys24, g, br, ld, COMPAT,
+                                               IPM.theta_max))(gu, bu, load)
+    c2, b2, l2, u2, colscale = dcopf.build_state_lp_vectors(
+        sys24, gu, bu, load, COMPAT, IPM.theta_max)
+    np.testing.assert_array_equal(np.asarray(c), np.asarray(c2))
+    np.testing.assert_array_equal(np.asarray(b), np.asarray(b2))
+    np.testing.assert_array_equal(np.asarray(l), np.asarray(l2))
+    np.testing.assert_array_equal(np.asarray(u), np.asarray(u2))
+
+
+def test_vectors_match_with_enforce_pmin(sys24, lane_states):
+    import dataclasses as dc
+    gu, bu, load = lane_states
+    compat_pm = dc.replace(COMPAT, enforce_pmin=True)
+    c, A, b, l, u = jax.vmap(
+        lambda g, br, ld: dcopf.build_state_lp(sys24, g, br, ld, compat_pm,
+                                               IPM.theta_max))(gu, bu, load)
+    c2, b2, l2, u2, _ = dcopf.build_state_lp_vectors(
+        sys24, gu, bu, load, compat_pm, IPM.theta_max)
+    np.testing.assert_array_equal(np.asarray(l), np.asarray(l2))
+    np.testing.assert_array_equal(np.asarray(u), np.asarray(u2))
+
+
+_LP_CASES = {
+    "rts24": cases.rts24,
+    "rts96": cases.rts96,
+    "rts24x6": lambda: cases.replicate_case(cases.rts24(), 6),
+}
+
+
+@pytest.mark.parametrize("case_name,B", [
+    ("rts24", 5), ("rts24", 37), ("rts96", 3), ("rts96", 11),
+    ("rts24x6", 3)])
+def test_lp_path_vs_highs_unpadded(case_name, B):
+    """The one LP path every device runs (dense IPM up to m = 336, the
+    structured block-Schur operator beyond — rts24x6 has m = 384) at
+    batch sizes that are no lane multiple: outputs keep shape B, and
+    every lane's DNS matches the float64 HiGHS oracle."""
+    from powersystemsreliabilityassessment.engines import lp_ipm_batched
+    from powersystemsreliabilityassessment.utils import oracle
+
+    case = _LP_CASES[case_name]()
+    sys_ = build_system(case, COMPAT)
+    rng = np.random.default_rng(B)
+    u = twostate.unavailability(case)
+    down = rng.uniform(size=(B, case.n_comp)) < 4 * u[None, :]
+    down &= ~np.asarray(sys_.always_up_nsq)[None, :]
+    # Lane 0 loses the six largest units: a deficit the LP must split.
+    down[0, np.argsort(-np.asarray(case.gen_pmax))[:6]] = True
+    loads = _peak_loads(sys_, B)
+
+    shed, pg, quality = dcopf._solve_batch(
+        sys_, jnp.asarray(down), jnp.asarray(loads), COMPAT, IPM)
+    assert shed.shape == (B, sys_.n_load)
+    assert pg.shape == (B, sys_.n_gen)
+    assert quality.shape == (B,)
+    m = sys_.n_bus + sys_.n_branch
+    assert (m > lp_ipm_batched._BLOCKED_MAX_M) == (case_name == "rts24x6")
+
+    res = dcopf.evaluate_states(sys_, jnp.asarray(down), jnp.asarray(loads),
+                                COMPAT, IPM)
+    assert res.dns_mw.shape == (B,)
+    dns = np.asarray(res.dns_mw, np.float64)
+    assert dns[0] > 1.0
+    for i in range(B):
+        ref = oracle.highs_dns(sys_, down[i], loads[i], COMPAT,
+                               IPM.theta_max)
+        assert dns[i] == pytest.approx(ref, abs=0.05), (i, dns[i], ref)
+
+
+@pytest.mark.parametrize("m", [5, 62, 337])
+def test_chol_ops_solve_matches_numpy(m):
+    """``_make_chol_ops``: XLA's batched Cholesky up to _BLOCKED_MAX_M,
+    the all-matmul blocked factor beyond — both solve an equilibrated
+    SPD batch to f32 accuracy."""
+    from powersystemsreliabilityassessment.engines import lp_ipm_batched
+
+    rng = np.random.default_rng(m)
+    G = rng.normal(size=(3, m, m + 4))
+    M = G @ np.swapaxes(G, 1, 2) + m * np.eye(m)
+    d = 1.0 / np.sqrt(np.einsum("bii->bi", M))
+    M = M * d[:, :, None] * d[:, None, :]
+    r = rng.normal(size=(3, m))
+    factor, solve = lp_ipm_batched._make_chol_ops(m)
+    F = factor(jnp.asarray(M, jnp.float32))
+    assert isinstance(F, tuple) == (m > lp_ipm_batched._BLOCKED_MAX_M)
+    x = np.asarray(solve(F, jnp.asarray(r, jnp.float32)), np.float64)
+    np.testing.assert_allclose(x, np.linalg.solve(M, r[..., None])[..., 0],
+                               atol=2e-4)

@@ -11,8 +11,8 @@ synthesis rule for cases that ship none.
 import numpy as np
 import pytest
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.core.matpower_io import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.core.matpower_io import (
     load_matpower_case, parse_matpower, resolve_case, save_matpower_case)
 
 
@@ -47,7 +47,7 @@ def test_roundtrip_bus_area(tmp_path):
 
 
 def test_case_hl15_view_from_loaded_file(tmp_path):
-    from powersystemsreliabilityassessment_tpu.studies import multiarea_demo
+    from powersystemsreliabilityassessment.studies import multiarea_demo
     case = cases.rts96()
     path = str(tmp_path / "r96b.m")
     save_matpower_case(case, path)
@@ -65,8 +65,8 @@ def test_case_hl15_view_from_loaded_file(tmp_path):
 
 def test_roundtrip_system_parity(tmp_path):
     """The loaded case builds the same electrical model (PTDF)."""
-    from powersystemsreliabilityassessment_tpu.core.system import build_system
-    from powersystemsreliabilityassessment_tpu.utils.config import CompatFlags
+    from powersystemsreliabilityassessment.core.system import build_system
+    from powersystemsreliabilityassessment.utils.config import CompatFlags
     case = cases.rts24()
     path = str(tmp_path / "rt.m")
     save_matpower_case(case, path)

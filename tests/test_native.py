@@ -1,5 +1,5 @@
 """Native C++ float64 reference solver: the verification oracle chain
-scipy(HiGHS) == native C++ IPM == batched f32 TPU engine."""
+scipy(HiGHS) == native C++ IPM == batched f32 device engine."""
 import shutil
 
 import jax.numpy as jnp
@@ -7,11 +7,11 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from powersystemsreliabilityassessment_tpu import native
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.core.system import build_system
-from powersystemsreliabilityassessment_tpu.engines import dcopf
-from powersystemsreliabilityassessment_tpu.utils.config import CompatFlags, IPMConfig
+from powersystemsreliabilityassessment import native
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.core.system import build_system
+from powersystemsreliabilityassessment.engines import dcopf
+from powersystemsreliabilityassessment.utils.config import CompatFlags, IPMConfig
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no C++ toolchain")

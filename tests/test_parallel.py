@@ -7,12 +7,12 @@ import pytest
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.parallel import accumulators, mesh as meshlib
-from powersystemsreliabilityassessment_tpu.runtime.checkpoint import Checkpointer
-from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import run_nsq_study
-from powersystemsreliabilityassessment_tpu.studies.hl2_seq import run_seq_study
-from powersystemsreliabilityassessment_tpu.utils.config import MCSConfig
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.parallel import accumulators, mesh as meshlib
+from powersystemsreliabilityassessment.runtime.checkpoint import Checkpointer
+from powersystemsreliabilityassessment.studies.hl2_nsq import run_nsq_study
+from powersystemsreliabilityassessment.studies.hl2_seq import run_seq_study
+from powersystemsreliabilityassessment.utils.config import MCSConfig
 
 
 def test_virtual_mesh_has_8_devices():
@@ -142,7 +142,7 @@ class TestStudiesSmoke:
 
 
 def test_seq_with_maintenance_smoke():
-    from powersystemsreliabilityassessment_tpu.studies.hl2_seq import (
+    from powersystemsreliabilityassessment.studies.hl2_seq import (
         run_seq_study)
     cfg = MCSConfig(max_years=8, cov_threshold=0.0, seed=4)
     r = run_seq_study(cases.rts24(), cfg, years_per_device=1, max_lp=96,
@@ -152,15 +152,15 @@ def test_seq_with_maintenance_smoke():
 
 
 def test_hl1_rts24_and_scaleup_smoke():
-    from powersystemsreliabilityassessment_tpu.studies import hl1_rts24
+    from powersystemsreliabilityassessment.studies import hl1_rts24
     gens = hl1_rts24.rts24_fleet()
     assert len(gens) == 32  # sync condenser excluded
     load = hl1_rts24.rts24_load(1000)
-    from powersystemsreliabilityassessment_tpu.studies import hl1_comparison
+    from powersystemsreliabilityassessment.studies import hl1_comparison
     ana = hl1_comparison.run_analytical(gens, load, step=5.0)
     assert ana.lole_hours_yr >= 0
 
-    from powersystemsreliabilityassessment_tpu.studies import scaleup
+    from powersystemsreliabilityassessment.studies import scaleup
     out = scaleup.run(case_name="rts24", samples=256, batch_size=128,
                       antithetic=True)
     assert out["samples"] >= 256
@@ -171,13 +171,13 @@ def test_seq_flat_block_equals_per_year():
     # as evaluating each year alone (same per-year keys).
     import jax as _jax
     import jax.numpy as _jnp
-    from powersystemsreliabilityassessment_tpu.core import load_profile
-    from powersystemsreliabilityassessment_tpu.core.system import build_system
-    from powersystemsreliabilityassessment_tpu.models import twostate
-    from powersystemsreliabilityassessment_tpu.sampling import chronological
-    from powersystemsreliabilityassessment_tpu.studies.hl2_seq import (
+    from powersystemsreliabilityassessment.core import load_profile
+    from powersystemsreliabilityassessment.core.system import build_system
+    from powersystemsreliabilityassessment.models import twostate
+    from powersystemsreliabilityassessment.sampling import chronological
+    from powersystemsreliabilityassessment.studies.hl2_seq import (
         _years_eval)
-    from powersystemsreliabilityassessment_tpu.utils.config import (
+    from powersystemsreliabilityassessment.utils.config import (
         CompatFlags, IPMConfig)
     case = cases.rts24()
     sys_ = build_system(case, CompatFlags())
@@ -198,7 +198,7 @@ def test_seq_flat_block_equals_per_year():
 
 
 def test_seq_adaptive_lp_buffer():
-    from powersystemsreliabilityassessment_tpu.studies.hl2_seq import (
+    from powersystemsreliabilityassessment.studies.hl2_seq import (
         run_seq_study)
     # absurdly small initial buffer: the study must grow it and redo
     # batches rather than fall back to bounds.
@@ -210,7 +210,7 @@ def test_seq_adaptive_lp_buffer():
 
 
 def test_checkpoint_resume_equals_uninterrupted(tmp_path):
-    from powersystemsreliabilityassessment_tpu.runtime.checkpoint import (
+    from powersystemsreliabilityassessment.runtime.checkpoint import (
         Checkpointer)
 
     cfg_full = MCSConfig(batch_size=128, max_samples=512, seed=13)
@@ -222,10 +222,10 @@ def test_checkpoint_resume_equals_uninterrupted(tmp_path):
     # reproduces the uninterrupted run's results.
     stats = accumulators.RunningStats()
     import jax as _jax
-    from powersystemsreliabilityassessment_tpu.core.system import build_system
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.core.system import build_system
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         make_nsq_batch_step)
-    from powersystemsreliabilityassessment_tpu.utils.config import (
+    from powersystemsreliabilityassessment.utils.config import (
         CompatFlags, IPMConfig)
     sys_ = build_system(cases.rts24(), CompatFlags())
     mesh = meshlib.scenario_mesh()
@@ -251,9 +251,9 @@ def test_seq_checkpoint_resume(tmp_path):
     """Interrupted SEQ run + resume == uninterrupted run (bit-identical
     EENS), because batch keys are fold_in(root, batch_idx) and the
     checkpoint records the consumed-batch frontier."""
-    from powersystemsreliabilityassessment_tpu.runtime.checkpoint import (
+    from powersystemsreliabilityassessment.runtime.checkpoint import (
         Checkpointer)
-    from powersystemsreliabilityassessment_tpu.studies.hl2_seq import (
+    from powersystemsreliabilityassessment.studies.hl2_seq import (
         run_seq_study)
 
     full = run_seq_study(cases.rts24(),
@@ -281,7 +281,7 @@ def test_seq_checkpoint_resume(tmp_path):
 
 
 def test_nsq_adaptive_lp_buffer_redo_exact():
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         run_nsq_study)
     # Importance boost makes multi-outage (uncertified) states common, so
     # an absurdly small initial LP buffer MUST overflow; the study grows
@@ -303,13 +303,13 @@ def test_nsq_adaptive_lp_buffer_redo_exact():
 
 
 def test_default_max_lp_mode_aware():
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         default_max_lp)
     # "lp" mode sends every deficit state to the LP (~10% of peak
     # states); "proportional" only certificate failures (~0.044% since
     # the post-outage repair extension) — its buffer must be
-    # correspondingly smaller (padding lanes are pure fused-IPM
-    # overhead; scripts/probe_bench_maxlp.py).
+    # correspondingly smaller (buffer lanes above the need are pure
+    # IPM overhead).
     assert default_max_lp(4096, "lp") == 1024
     assert default_max_lp(4096, "proportional") == 64
     assert default_max_lp(4096, "proportional", is_boost=4.0) == 2048
@@ -325,13 +325,13 @@ def test_default_max_lp_mode_aware():
 
 
 def test_default_woodbury_k_auto_rule():
-    from powersystemsreliabilityassessment_tpu.core.system import build_system
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.core.system import build_system
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         default_woodbury_k)
     sys24 = build_system(cases.rts24())
     # RTS-24 plain MC: sum of branch unavailabilities ~0.015 ->
     # P(>=3 branch outages) ~6e-7 -> rank 2 (extra rank-4 selector
-    # matmuls are pure HBM traffic there).
+    # matmuls are pure memory traffic there).
     assert default_woodbury_k(sys24) == 2
     # All-component boost drives branch rates up ~boost x -> rank 4.
     assert default_woodbury_k(sys24, is_boost=42.0,
@@ -380,14 +380,14 @@ def test_nsq_mixture_step_agrees_with_plain():
     # so the mesh-sharded step's weighted EDNS must agree with plain MC
     # within MC noise on RTS-96 (3 areas), and weights are bounded by
     # 1/alpha0.
-    from powersystemsreliabilityassessment_tpu.core import cases
-    from powersystemsreliabilityassessment_tpu.core.system import (
+    from powersystemsreliabilityassessment.core import cases
+    from powersystemsreliabilityassessment.core.system import (
         build_system)
-    from powersystemsreliabilityassessment_tpu.parallel import (
+    from powersystemsreliabilityassessment.parallel import (
         mesh as meshlib)
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         gen_area_masks, make_nsq_batch_step)
-    from powersystemsreliabilityassessment_tpu.utils.config import (
+    from powersystemsreliabilityassessment.utils.config import (
         CompatFlags, IPMConfig)
 
     case = cases.rts96()
@@ -422,7 +422,7 @@ def test_seq_transient_redo_and_promotion(capsys):
     # small base every batch overflows, so the promotion must fire and
     # the result must still be exact (overflow_hours 0, grow-and-redo
     # invariance vs a comfortably-buffered run).
-    from powersystemsreliabilityassessment_tpu.studies.hl2_seq import (
+    from powersystemsreliabilityassessment.studies.hl2_seq import (
         run_seq_study)
     # 8-device mesh -> 8 years/batch; 40 years = 5 batches, enough for
     # the 3-consecutive-redo promotion to fire. load_scale 1.3 makes

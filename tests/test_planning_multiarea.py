@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from powersystemsreliabilityassessment_tpu.engines import elu as elu_mod
-from powersystemsreliabilityassessment_tpu.engines import multiarea, planning
-from powersystemsreliabilityassessment_tpu.studies import (
+from powersystemsreliabilityassessment.engines import elu as elu_mod
+from powersystemsreliabilityassessment.engines import multiarea, planning
+from powersystemsreliabilityassessment.studies import (
     hl1_comparison, markov_education, multiarea_demo, planning_elu)
 
 
@@ -163,7 +163,7 @@ class TestMultiArea:
                               <= np.maximum(-m[b], 0.0) + 1e-3)
 
     def test_areas_from_case_rts96(self):
-        from powersystemsreliabilityassessment_tpu.core import cases
+        from powersystemsreliabilityassessment.core import cases
         case = cases.rts96()
         sys = multiarea.areas_from_case(
             case, np.arange(case.n_bus) // 24, np.ones(10))
@@ -197,11 +197,11 @@ class TestShardedEngines:
     fold_in(key, device) scheme."""
 
     def test_multiarea_sharded_equals_serial(self):
-        from powersystemsreliabilityassessment_tpu.parallel import (
+        from powersystemsreliabilityassessment.parallel import (
             mesh as meshlib)
-        from powersystemsreliabilityassessment_tpu.sampling import (
+        from powersystemsreliabilityassessment.sampling import (
             chronological)
-        from powersystemsreliabilityassessment_tpu.utils.config import (
+        from powersystemsreliabilityassessment.utils.config import (
             IPMConfig)
 
         sys = multiarea_demo.demo_system(hours=500)
@@ -248,9 +248,9 @@ class TestShardedEngines:
         np.testing.assert_allclose(np.asarray(es), exp_es, rtol=1e-4)
 
     def test_hl1_nsq_sharded_equals_serial(self):
-        from powersystemsreliabilityassessment_tpu.engines import (
+        from powersystemsreliabilityassessment.engines import (
             copper_sheet)
-        from powersystemsreliabilityassessment_tpu.parallel import (
+        from powersystemsreliabilityassessment.parallel import (
             mesh as meshlib)
 
         gens = hl1_comparison.demo_fleet()
@@ -313,9 +313,35 @@ class TestEducational:
 
 
 def test_three_area_rts96_hl15():
-    from powersystemsreliabilityassessment_tpu.studies import multiarea_demo
+    from powersystemsreliabilityassessment.studies import multiarea_demo
     out = multiarea_demo.run_rts96_hl15(n_years=4, hours=1000)
     iso = out[multiarea.ISOLATED]
     inter = out[multiarea.INTERCONNECTED]
     assert len(iso["lole"]) == 3
     assert sum(inter["eue"]) <= sum(iso["eue"]) + 1e-6
+
+
+@pytest.mark.parametrize("B", [1, 5, 129])
+def test_solve_curtailment_any_batch_matches_f64_lp(B):
+    """solve_curtailment runs any batch size as is (no lane padding):
+    shape [B, A], and each row's total equals the float64 HiGHS
+    optimum of the min-total-curtailment LP."""
+    from scipy.optimize import linprog
+    rng = np.random.default_rng(B)
+    A, tf, tt = 3, np.array([0, 1, 0]), np.array([1, 2, 2])
+    cap = np.array([30.0, 40.0, 10.0])
+    m = rng.uniform(-100.0, 120.0, (B, A))
+    out = np.asarray(multiarea.solve_curtailment(
+        jnp.asarray(m, jnp.float32), jnp.asarray(tf, jnp.int32),
+        jnp.asarray(tt, jnp.int32), jnp.asarray(cap, jnp.float32)))
+    assert out.shape == (B, A)
+    inc = np.zeros((A, 3))
+    np.add.at(inc, (tt, np.arange(3)), 1.0)
+    np.add.at(inc, (tf, np.arange(3)), -1.0)
+    for b in range(0, B, max(B // 8, 1)):
+        res = linprog(c=np.concatenate([np.ones(A), np.zeros(6)]),
+                      A_ub=np.concatenate([-np.eye(A), -inc, inc], axis=1),
+                      b_ub=m[b], bounds=[(0, None)] * A
+                      + [(0, c) for c in cap] * 2, method="highs")
+        assert res.status == 0
+        assert out[b].sum() == pytest.approx(res.fun, abs=0.15)

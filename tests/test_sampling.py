@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.models import twostate
-from powersystemsreliabilityassessment_tpu.sampling import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.models import twostate
+from powersystemsreliabilityassessment.sampling import (
     chronological, markov, state)
 
 
@@ -23,34 +23,6 @@ class TestBernoulli:
         always = jnp.zeros(71, bool).at[14].set(True)
         down = state.sample_states(jax.random.key(1), u, always, 500)
         assert not bool(down[:, 14].any())  # mc_sampling.m:40-41 semantics
-
-    def test_hw_impl_falls_back_to_threefry_off_tpu(self):
-        # rng_impl="hw" must be a pure throughput substitution: off-TPU
-        # (this CPU mesh) it routes to the threefry path bit-identically.
-        u = jnp.asarray(twostate.unavailability(cases.rts24()), jnp.float32)
-        always = jnp.zeros(71, bool).at[10].set(True)
-        a = state.sample_states(jax.random.key(3), u, always, 256)
-        b = state.sample_states(jax.random.key(3), u, always, 256,
-                                rng_impl="hw")
-        assert (np.asarray(a) == np.asarray(b)).all()
-
-    def test_hw_thresholds_exact(self):
-        from powersystemsreliabilityassessment_tpu.ops import hw_sampler
-        u = jnp.asarray([0.0, 0.02, 0.5, 1.0, 1e-9], jnp.float32)
-        always = jnp.asarray([False, False, False, False, True])
-        t = np.asarray(hw_sampler.bernoulli_thresholds(u, always, 128))
-        assert t.shape == (1, 128)
-        # P(draw < t) = t / 2^24 = ceil(U * 2^24) / 2^24: within one
-        # 2^-24 quantum of U, and ceil keeps P > 0 whenever U > 0
-        # (U = 1e-9 would round to never-fail; it must get threshold 1).
-        np.testing.assert_array_equal(
-            t[0, :4], [0, int(np.ceil(np.float32(0.02) * 2**24)),
-                       2**23, 2**24])
-        assert t[0, 4] == 0          # pinned beats U > 0
-        assert np.asarray(hw_sampler.bernoulli_thresholds(
-            jnp.asarray([1e-9], jnp.float32), jnp.asarray([False]),
-            128))[0, 0] == 1
-        assert (t[0, 5:] == 0).all()  # padding can never fail
 
     def test_antithetic_pairs(self):
         u = jnp.full((4,), 0.5, jnp.float32)
@@ -189,10 +161,10 @@ class TestImportance:
         # CE pilot on RTS-24 (capacity-driven): learns a valid proposal
         # (q in [U, 0.5], pinned stays 0, gens tilted since deficits are
         # capacity-driven) and the CE study agrees with plain MC.
-        from powersystemsreliabilityassessment_tpu.core.system import (
+        from powersystemsreliabilityassessment.core.system import (
             build_system)
-        from powersystemsreliabilityassessment_tpu.studies import hl2_nsq
-        from powersystemsreliabilityassessment_tpu.utils.config import (
+        from powersystemsreliabilityassessment.studies import hl2_nsq
+        from powersystemsreliabilityassessment.utils.config import (
             CompatFlags, IPMConfig, MCSConfig)
         case = cases.rts24()
         sysm = build_system(case, CompatFlags())
@@ -211,7 +183,7 @@ class TestImportance:
         # variance diagnostic improves (or at least does not blow up)
         assert diag["rounds"][-1]["events"] >= 8
 
-        from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+        from powersystemsreliabilityassessment.studies.hl2_nsq import (
             run_nsq_study)
         plain = run_nsq_study(case,
                               MCSConfig(batch_size=1024, max_samples=4096,
@@ -225,9 +197,9 @@ class TestImportance:
         assert np.isfinite(cer.beta)
 
     def test_nsq_study_importance_agrees_with_plain(self):
-        from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+        from powersystemsreliabilityassessment.studies.hl2_nsq import (
             run_nsq_study)
-        from powersystemsreliabilityassessment_tpu.utils.config import (
+        from powersystemsreliabilityassessment.utils.config import (
             MCSConfig)
         plain = run_nsq_study(cases.rts24(),
                               MCSConfig(batch_size=1024, max_samples=4096,
@@ -329,10 +301,10 @@ def test_sparsify_ce_proposal_bounded_tilt():
     # everything else at U (never a down-tilt), zeroes pinned
     # components — the bounded-likelihood-weight construction motivated
     # by the dense-CE failure on case300s (results/ce_ab.json).
-    from powersystemsreliabilityassessment_tpu.core import cases
-    from powersystemsreliabilityassessment_tpu.core.system import build_system
-    from powersystemsreliabilityassessment_tpu.studies import hl2_nsq
-    from powersystemsreliabilityassessment_tpu.utils.config import CompatFlags
+    from powersystemsreliabilityassessment.core import cases
+    from powersystemsreliabilityassessment.core.system import build_system
+    from powersystemsreliabilityassessment.studies import hl2_nsq
+    from powersystemsreliabilityassessment.utils.config import CompatFlags
 
     case = cases.rts24()
     sysm = build_system(case, CompatFlags())
@@ -364,17 +336,17 @@ def test_sparsify_ce_proposal_bounded_tilt():
 
 def test_default_max_lp_pf_tier_cap():
     # With the island-PF tier active (large-m systems) the
-    # "proportional" plain-MC buffer caps at one 128-lane tile —
-    # measured 2.2x step win with identical estimates at case300s
-    # (results/r5_maxlp_pf.json). Other modes are unaffected.
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    # "proportional" plain-MC buffer caps at 128 lanes (the LP pass
+    # scales with buffer lanes; estimates are unchanged). Other modes
+    # are unaffected.
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         default_max_lp)
     assert default_max_lp(16384, "proportional", pf_tier=True) == 128
     assert default_max_lp(16384, "proportional", pf_tier=False) == 256
     assert default_max_lp(4096, "proportional", pf_tier=True) == 64
     # boosted / lp-mode regimes keep larger buffers off the pf tier,
-    # but the large-m HBM envelope caps everything at 2048 (a 4096-lane
-    # m~800 IPM buffer OOM'd the 15.75 GB chip at compile)
+    # but the large-m memory cap holds everything at 2048 (see
+    # hl2_nsq.default_max_lp)
     assert default_max_lp(16384, "lp", pf_tier=False) == 4096
     assert default_max_lp(16384, "lp", pf_tier=True) == 2048
     assert default_max_lp(16384, "proportional", is_boost=2.0,

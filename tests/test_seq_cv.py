@@ -14,13 +14,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from powersystemsreliabilityassessment_tpu.core import cases, load_profile
-from powersystemsreliabilityassessment_tpu.core.system import build_system
-from powersystemsreliabilityassessment_tpu.engines import copt
-from powersystemsreliabilityassessment_tpu.models import twostate
-from powersystemsreliabilityassessment_tpu.sampling import chronological
-from powersystemsreliabilityassessment_tpu.studies import hl2_seq
-from powersystemsreliabilityassessment_tpu.utils.config import (
+from powersystemsreliabilityassessment.core import cases, load_profile
+from powersystemsreliabilityassessment.core.system import build_system
+from powersystemsreliabilityassessment.engines import copt
+from powersystemsreliabilityassessment.models import twostate
+from powersystemsreliabilityassessment.sampling import chronological
+from powersystemsreliabilityassessment.studies import hl2_seq
+from powersystemsreliabilityassessment.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
 
 
@@ -153,7 +153,7 @@ def _nsq_copper_mu():
 
 
 def test_nsq_cv_unbiased_and_tighter():
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         run_nsq_study)
     case = cases.rts24()
     cfg = MCSConfig(batch_size=256, max_samples=1024, beta_limit=0.0,
@@ -177,7 +177,7 @@ def test_nsq_cv_unbiased_and_tighter():
 
 
 def test_nsq_cv_composes_with_importance_sampling():
-    from powersystemsreliabilityassessment_tpu.studies.hl2_nsq import (
+    from powersystemsreliabilityassessment.studies.hl2_nsq import (
         run_nsq_study)
     case = cases.rts24()
     cfg = MCSConfig(batch_size=256, max_samples=1024, beta_limit=0.0,

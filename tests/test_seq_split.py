@@ -12,18 +12,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from powersystemsreliabilityassessment_tpu.core import cases
-from powersystemsreliabilityassessment_tpu.sampling import chronological
-from powersystemsreliabilityassessment_tpu.studies.hl2_seq_split import (
+from powersystemsreliabilityassessment.core import cases
+from powersystemsreliabilityassessment.sampling import chronological
+from powersystemsreliabilityassessment.studies.hl2_seq_split import (
     SplitConfig, run_seq_split_study)
-from powersystemsreliabilityassessment_tpu.utils.config import MCSConfig
+from powersystemsreliabilityassessment.utils.config import MCSConfig
 
 
 def test_from_state_up_matches_plain():
     # Starting all-UP with the same key reproduces sample_timeline's
     # continuous (quantize=False) realization exactly.
     case = cases.rts24()
-    from powersystemsreliabilityassessment_tpu.models import twostate
+    from powersystemsreliabilityassessment.models import twostate
     mt = twostate.mean_times(case)
     mttf = jnp.asarray(mt[:, 0], jnp.float32)
     mttr = jnp.asarray(mt[:, 1], jnp.float32)
@@ -38,7 +38,7 @@ def test_from_state_up_matches_plain():
 
 def test_from_state_down_starts_down():
     case = cases.rts24()
-    from powersystemsreliabilityassessment_tpu.models import twostate
+    from powersystemsreliabilityassessment.models import twostate
     mt = twostate.mean_times(case)
     down0 = jnp.ones(case.n_comp, bool)
     nd = chronological.default_num_draws(mt[:, 0], mt[:, 1], 48)
@@ -80,7 +80,7 @@ def test_shift_table_never_clamps():
     # t > pad onto t = pad (dynamic_slice clamps the start), which fed
     # clones the January load profile regardless of season and biased
     # the split EENS low by ~2x.
-    from powersystemsreliabilityassessment_tpu.studies.hl2_seq_split import (
+    from powersystemsreliabilityassessment.studies.hl2_seq_split import (
         _pad_shift_table)
     H = 8736
     fac = np.arange(H, dtype=np.float32)  # identity -> slice start visible
@@ -116,7 +116,7 @@ def test_split_auto_level_calibration():
 
 
 def test_split_checkpoint_resume_equals_uninterrupted(tmp_path):
-    from powersystemsreliabilityassessment_tpu.runtime.checkpoint import (
+    from powersystemsreliabilityassessment.runtime.checkpoint import (
         Checkpointer)
     cfg = MCSConfig(max_years=24, cov_threshold=0.0, seed=9)
     kw = dict(years_per_device=1, max_lp=64, hours=504, log_every=0)
@@ -144,7 +144,7 @@ def test_antithetic_from_state_distribution():
     # down-fraction of a component over many independent pairs matches
     # the plain draw's within MC tolerance.
     case = cases.rts24()
-    from powersystemsreliabilityassessment_tpu.models import twostate
+    from powersystemsreliabilityassessment.models import twostate
     mt = twostate.mean_times(case)
     mttf = jnp.asarray(mt[:, 0], jnp.float32)
     mttr = jnp.asarray(mt[:, 1], jnp.float32)

@@ -2,8 +2,8 @@
 report helpers."""
 import numpy as np
 
-from powersystemsreliabilityassessment_tpu.runtime.checkpoint import Checkpointer
-from powersystemsreliabilityassessment_tpu.utils import profiling, report
+from powersystemsreliabilityassessment.runtime.checkpoint import Checkpointer
+from powersystemsreliabilityassessment.utils import profiling, report
 
 
 def test_timings_sections():
@@ -31,7 +31,7 @@ def test_checkpointer_roundtrip_and_clear(tmp_path):
 
 
 def test_orbax_checkpointer_roundtrip(tmp_path):
-    from powersystemsreliabilityassessment_tpu.runtime.checkpoint import (
+    from powersystemsreliabilityassessment.runtime.checkpoint import (
         OrbaxCheckpointer)
     ck = OrbaxCheckpointer(str(tmp_path / "orbax_ckpt"))
     assert ck.restore() is None

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from powersystemsreliabilityassessment_tpu.ops import xla_chol
+from powersystemsreliabilityassessment.ops import xla_chol
 
 
 def _spd_batch(B, m, seed=0, cond=1e4):
@@ -33,8 +33,8 @@ def test_factor_matches_xla_cholesky(m):
     # Parity of the PRODUCTION factor against numpy's f64 Cholesky:
     # factor returns the explicit inverse factor, so recover
     # L = Linv^-1 (exactly triangular) and compare. This tests the one
-    # implementation the IPM actually runs (advisor r4: a separate
-    # blocked_cholesky copy drifted from factor's fused numerics).
+    # implementation the IPM actually runs (a separate blocked copy
+    # once drifted from factor's fused numerics).
     M = _spd_batch(3, m, seed=m)
     Linv, m_out = xla_chol.factor(jnp.asarray(M, jnp.float32))
     assert m_out == m
